@@ -1,10 +1,10 @@
-"""arrow_tpu — a TPU-native vectorized query-execution engine.
+"""arrow_tpu — a vectorized query-execution engine for accelerators.
 
-Built from scratch in JAX/XLA/Pallas with the compute-kernel capabilities of
+Built from scratch in JAX/XLA with the compute-kernel capabilities of
 the Apache Arrow Rust implementation (arrow-rs, see SURVEY.md): columnar
-HBM-resident tables with validity-mask tensors, fused element-wise kernels,
+device-resident tables with validity-mask tensors, fused element-wise kernels,
 selection (filter/take), order-preserving row-format sort, cast, aggregation,
-hash group-by and hash join, scaled over multi-host TPU meshes with
+hash group-by and hash join, scaled over multi-device meshes with
 hash-partitioned shuffles.
 
 Facade layout mirrors the reference's `arrow` umbrella crate

@@ -3,8 +3,8 @@
 Builders are construction-time host-side accumulators — in the reference
 they are append loops over MutableBuffer; here they accumulate in numpy
 and upload one device tensor at finish() (device round-trips per append
-would be absurd on TPU).  The dictionary builder hash-interns values like
-generic_bytes_dictionary_builder.rs.
+would be absurd on an accelerator).  The dictionary builder hash-interns
+values like generic_bytes_dictionary_builder.rs.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Device-resident columnar arrays.
 
-TPU-native re-design of the reference's array model (arrow-array/src/array/,
+Device-native re-design of the reference's array model (arrow-array/src/array/,
 arrow-data/src/data.rs:205).  Differences by design, not translation:
 
   - A column is a JAX pytree of device tensors, not a byte-buffer graph:
@@ -24,6 +24,7 @@ Class map (reference -> here):
 
 from __future__ import annotations
 
+import sys
 from typing import Optional, Sequence, Tuple
 
 import jax
@@ -466,10 +467,12 @@ def column(data, dtype: Optional[dt.DataType] = None,
     Strings dictionary-encode via `ops.strings.dictionary_encode` if desired;
     here they become StringColumn.
     """
-    import pyarrow as pa
     if isinstance(data, Column):
         return data
-    if isinstance(data, (pa.Array, pa.ChunkedArray)):
+    # pyarrow is optional: an object can only be a pyarrow array if the
+    # caller has imported pyarrow already
+    pa = sys.modules.get("pyarrow")
+    if pa is not None and isinstance(data, (pa.Array, pa.ChunkedArray)):
         from ..io.interop import column_from_pyarrow
         return column_from_pyarrow(data)
     if isinstance(data, (jnp.ndarray, np.ndarray)) and not (

@@ -3,7 +3,7 @@
 Mirrors the reference's `Datum` trait + `Scalar` wrapper
 (arrow-array/src/scalar.rs:78,128): every binary kernel accepts
 (array, array), (array, scalar) or (scalar, array) and broadcasts.
-On TPU a scalar is a rank-0 device tensor — XLA broadcasts for free, so
+On the device a scalar is a rank-0 tensor — XLA broadcasts for free, so
 unlike the reference no specialized scalar code paths are needed; kernels
 just call `broadcast_values`.
 """

@@ -5,7 +5,7 @@ Completes the reference's physical layout registry
 (arrow-data/src/data.rs:1579 layout(); arrow-array typed wrappers:
 fixed_size_list FixedSizeListArray :119, map_array.rs:36,
 union_array.rs:123, run_array.rs:63, fixed_size_binary_array.rs:53)
-with TPU-native representations: every layout is a pytree of dense
+with device-native representations: every layout is a pytree of dense
 device tensors; variable-width indirection is offsets/ids tensors, and
 the 128/256-bit scalars (Decimal128/Decimal256 — the i256 analog,
 arrow-buffer/src/bigint/mod.rs) are little-endian u64 limb planes so

@@ -2,7 +2,7 @@
 TrackingMemoryPool; arrow-array get_{array,buffer}_memory_size,
 dictionary occupancy dictionary_array.rs:563).
 
-On TPU the allocator is XLA's HBM arena, so the pool here is an
+On the device the allocator is XLA's memory arena, so the pool here is an
 accounting layer: columns register their device-tensor footprints into a
 pool; TrackingMemoryPool keeps the running and peak totals.  Sizes are
 exact tensor byte sizes (device tensors are dense, no slack bytes).

@@ -1,8 +1,8 @@
 """Tensor type (arrow facade src/tensor.rs): a dense n-dimensional value
 container over one device buffer, with shape/strides/dim-names metadata.
 
-On TPU the natural representation IS a jnp.ndarray; this wrapper adds the
-Arrow Tensor API surface (shape, strides in bytes, dimension names,
+On the device the natural representation IS a jnp.ndarray; this wrapper
+adds the Arrow Tensor API surface (shape, strides in bytes, dimension names,
 row/column-major predicates) and pyarrow interchange.
 """
 

@@ -1,10 +1,10 @@
 """Validity-mask algebra.
 
 The reference stores validity as packed bit buffers with word-at-a-time
-kernels (arrow-buffer/src/buffer/{null.rs,ops.rs}).  On TPU the natural
-representation is a dense bool tensor: the VPU operates on (8,128) vector
-lanes and XLA fuses mask algebra into the consuming kernel for free, so
-bit-packing would only add unpack traffic.  `None` means "all valid"
+kernels (arrow-buffer/src/buffer/{null.rs,ops.rs}).  On the device the
+natural representation is a dense bool tensor: XLA fuses mask algebra into
+the consuming kernel for free, so bit-packing would only add unpack
+traffic.  `None` means "all valid"
 (the reference's elided null buffer).
 """
 

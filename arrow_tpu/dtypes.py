@@ -1,9 +1,9 @@
 """Logical type system.
 
-TPU-native re-design of the reference's arrow-schema crate
+Device-native re-design of the reference's arrow-schema crate
 (arrow-schema/src/datatype.rs:97-441): the same logical-type vocabulary, but
 each logical type maps onto a *physical device representation* chosen for
-XLA/TPU (static shapes, SoA tensors, dense bool validity masks) rather than
+XLA (static shapes, SoA tensors, dense bool validity masks) rather than
 the reference's byte-buffer layouts.
 
 Physical mapping summary:

@@ -1,10 +1,10 @@
 """Operator-pipeline fusion: one XLA program per query, not per op.
 
-The TPU-first answer to the reference's kernel-at-a-time API (SURVEY.md
+The device-first answer to the reference's kernel-at-a-time API (SURVEY.md
 §1 L3): columns are jax pytrees, so ANY chain of `arrow_tpu.compute`
 ops over them jits into a single fused program — XLA fuses the
-elementwise work, dead code is eliminated, and the ~100x per-op remote
-dispatch overhead of the eager API (CLAUDE.md, measured) is paid once.
+elementwise work, dead code is eliminated, and the per-op dispatch
+overhead of the eager API is paid once.
 
     from arrow_tpu import fuse, compute as ops
 

@@ -6,7 +6,7 @@ the engine's own wire/spill/checkpoint format; io/ipc.py layers framing,
 stream/file formats, and the push decoder on top.
 
 Re-designs arrow-ipc/src/writer.rs:477 (IpcDataGenerator::encoded_batch)
-and arrow-ipc/src/reader.rs:638 (read_record_batch) — but TPU-first: the
+and arrow-ipc/src/reader.rs:638 (read_record_batch) — but device-first: the
 in-memory model is dense-mask device columns, so encode packs validity
 bits with np.packbits on egress and decode unpacks straight into device
 tensors; body buffer views are zero-copy numpy slices until upload.

@@ -2,7 +2,7 @@
 
 Mirrors arrow-arith/src/aggregate.rs.  The reference's LANES-array
 accumulator design (aggregate.rs:98-145,277) exists to coax SIMD out of a
-scalar compiler; on TPU a reduction IS the native VPU/XLA primitive, so the
+scalar compiler; on the device a reduction IS the native XLA primitive, so the
 kernels are direct masked reductions.
 
 Semantics matched:

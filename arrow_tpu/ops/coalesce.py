@@ -2,10 +2,10 @@
 (arrow-select/src/coalesce.rs:132).
 
 Query operators emit variable-row batches (filters shrink, joins grow); the
-coalescer re-chunks the stream into fixed-capacity batches — on TPU this is
-what keeps downstream jitted kernels at ONE static shape (one compilation),
-the engine's answer to XLA's static-shape rule (SURVEY.md §7: fixed-capacity
-chunks with a valid_len).
+coalescer re-chunks the stream into fixed-capacity batches — on the
+device this is what keeps downstream jitted kernels at ONE static shape
+(one compilation), the engine's answer to XLA's static-shape rule
+(SURVEY.md §7: fixed-capacity chunks with a valid_len).
 
 push_batch_with_filter fuses the filter with the concat, like coalesce.rs:201.
 """

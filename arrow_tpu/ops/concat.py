@@ -1,6 +1,6 @@
 """concat + interleave: merge primitives.
 
-concat (arrow-select/src/concat.rs:371): on TPU a concat of device tensors
+concat (arrow-select/src/concat.rs:371): on the device a concat of tensors
 is a single XLA concatenate per buffer — capacity precomputation
 (concat.rs:46-82) is XLA's job.  Dictionary concat shifts codes into a
 combined dictionary (the reference merges + remaps when beneficial,
@@ -8,8 +8,8 @@ concat.rs:98-109; value-dedup is ops.strings.dictionary_unify's job).
 
 interleave (arrow-select/src/interleave.rs:70) builds an array from
 (array_idx, row_idx) pairs over N sources — realized as concat + flat
-gather, which on TPU is strictly better than the reference's per-type
-copy loops: one gather at full HBM bandwidth.
+gather instead of the reference's per-type copy loops: one gather per
+buffer.
 """
 
 from __future__ import annotations

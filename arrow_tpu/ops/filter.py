@@ -2,9 +2,9 @@
 
 Re-design of arrow-select/src/filter.rs.  The reference picks between a
 run-memcpy strategy and an index-gather strategy at selectivity 0.8
-(filter.rs:42,268-285) — a CPU-cache heuristic.  On TPU (measured on v5e,
-round 1): element gathers and scatters run 25-300x below HBM bandwidth,
-while the XLA sort is within ~10x — so compaction is a stable PARTITION:
+(filter.rs:42,268-285) — a CPU-cache heuristic.  Here compaction is one
+stable PARTITION, which carries every column of the batch in one device
+sort instead of one gather per column:
 
     keep = predicate_values AND predicate_validity     (prep_null_mask,
                                                         filter.rs:116)
@@ -21,10 +21,10 @@ columns as payload operands, so the whole batch compacts in ONE kernel.
 
 For query pipelines that immediately consume the filtered column
 (filter->arith->aggregate), do not compact at all: keep the mask and fuse
-(ops.arity kernels accept validity masks) — that path runs at full HBM
-bandwidth (bench.py).  The output length is data-dependent; the eager API
-syncs the popcount (one scalar); `filter_static` is the jit-safe
-capacity-padded variant (SURVEY.md §7).
+(ops.arity kernels accept validity masks) — that path is one streaming
+pass over device memory (bench.py).  The output length is data-dependent;
+the eager API syncs the popcount (one scalar); `filter_static` is the
+jit-safe capacity-padded variant (SURVEY.md §7).
 """
 
 from __future__ import annotations
@@ -69,8 +69,7 @@ class FilterPredicate:
 
 def _nonzero_indices(keep: jnp.ndarray, count: int) -> jnp.ndarray:
     # partition-by-sort: row index payload sorted by NOT keep, stable ->
-    # kept rows' indices first, original order (measured far faster on TPU
-    # than jnp.nonzero's cumsum+scatter lowering)
+    # kept rows' indices first, original order
     n = keep.shape[0]
     iota = jnp.arange(n, dtype=jnp.int32)
     _, idx = jax.lax.sort((~keep, iota), num_keys=1, is_stable=True)
@@ -79,22 +78,8 @@ def _nonzero_indices(keep: jnp.ndarray, count: int) -> jnp.ndarray:
 
 def compact_by_mask(keep: jnp.ndarray, count: int, *arrays: jnp.ndarray):
     """Partition every array's kept rows to the front, slice to `count`
-    (static).
-
-    Wide batches route to the Pallas MXU permutation kernel
-    (kernels/compact.py) when every dtype is supported — measured 3.6x
-    faster than the partition-sort at 4 x 8-byte columns on v5e (63 vs
-    229 ms at 10M rows); narrow batches keep the fused stable sort
-    (the kernel is block-latency-bound and loses below ~6 u32 planes).
-    """
-    from .. import config
-    if config.use_pallas():
-        from ..kernels import compact as ck
-        nplanes = sum(max(a.dtype.itemsize // 4, 1) for a in arrays)
-        if nplanes >= 6 and all(ck.supported_dtype(a.dtype)
-                                for a in arrays):
-            outs, _ = ck.compact_mask_arrays(keep, arrays)
-            return tuple(a[:count] for a in outs)
+    (static): one stable sort keyed on NOT keep, every array a payload
+    operand."""
     sorted_ops = jax.lax.sort((~keep,) + tuple(arrays), num_keys=1,
                               is_stable=True)
     return tuple(a[:count] for a in sorted_ops[1:])
@@ -182,8 +167,7 @@ def filter_static(values: jnp.ndarray, keep: jnp.ndarray
 
 def filter_static_multi(keep: jnp.ndarray, *arrays: jnp.ndarray):
     """filter_static over several aligned arrays sharing ONE partition
-    sort (each extra operand rides the same sort for ~free — measured
-    r4: payload operands cost ~0 at 125M).  Returns
+    sort (each extra operand rides the same sort).  Returns
     (tuple_of_compacted, valid_len)."""
     outs = compact_by_mask(keep, arrays[0].shape[0], *arrays)
     return outs, jnp.sum(keep, dtype=jnp.int32)

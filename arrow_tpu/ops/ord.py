@@ -2,7 +2,7 @@
 
 make_comparator(a, b, options) returns cmp(i, j) -> -1|0|1 comparing
 a[i] with b[j] under SortOptions — the reference's building block for
-merge operators and generic sorting of arbitrary types.  On TPU the
+merge operators and generic sorting of arbitrary types.  Here the
 comparator rides the engine's order-preserving u64 key encoding
 (ops.row_format, the arrow-row fixed.rs map), pulled to host once per
 array; nested types compare via their encoded key stacks.

@@ -3,7 +3,7 @@
 Re-design of arrow-ord/src/sort.rs.  The reference's comparison sort over
 (index, value) pairs (sort.rs:478) becomes: order-preserving uint64 key
 transform (ops.row_format, the arrow-row encoding idea) + stable radix-style
-argsort on device — the TPU path the reference itself recommends for
+argsort on device — the path the reference itself recommends for
 multi-column sorts (arrow-row/src/lib.rs:103-121).
 
 Parity notes:
@@ -166,11 +166,10 @@ def sort_table(table: Table, by: Sequence[Tuple[str, SortOptions]],
     Key columns are DECODED from the sorted key bits themselves — the
     order keys in row_format are invertible, so a key column's output
     costs zero gathers.  Only non-key (or non-decodable) columns ride a
-    fused take_table gather.  This matters at scale: at 100M rows a
-    random gather costs ~1.9 s/column on v5e while the decode is an
-    elementwise pass fused into the sort program; the all-keys
-    sort_table (BASELINE config 3) drops from 5.3 s to the sort cost
-    alone.  NOTE: carrying payloads as extra lax.sort operands was
+    fused take_table gather.  This matters at scale: a row-sized random
+    gather per column is replaced by an elementwise pass fused into the
+    sort program, so the all-keys sort_table (BASELINE config 3) costs
+    the sort alone.  NOTE: carrying payloads as extra lax.sort operands was
     measured 4.7x SLOWER at 10M x 3 columns (3610 vs 775 ms) — the
     sort moves payload bytes through every merge pass."""
     by = list(by)
@@ -243,9 +242,7 @@ def _sort_decode_stage(kinds, opts, has_nulls, metas, need_idx, limit,
     """One XLA program: encode keys, ONE multi-key sort, decode every
     key group back to values/codes/validity, optional row indices for
     the non-key gather.  `payloads` ride the same sort as extra
-    operands: at >=50M rows a payload operand costs ~0.6 s of extra
-    merge-pass bytes vs ~2.4 s for a post-sort random gather (v5e,
-    measured; the crossover flips around tens of millions of rows)."""
+    operands instead of a post-sort random gather."""
     from .row_format import (encode_key_groups_traced,
                              decode_sorted_group)
     groups = encode_key_groups_traced(kinds, opts, parts)
@@ -255,7 +252,6 @@ def _sort_decode_stage(kinds, opts, has_nulls, metas, need_idx, limit,
         # true partial sort (sort.rs partial_sort:853): ONE u64 key ->
         # lax.top_k of the complemented key gives the smallest `limit`
         # keys; top_k tie-break is ascending index = stable order
-        # (measured on v5e: compiles on u64)
         topv, topi = jax.lax.top_k(~flat[0], limit)
         skey = ~topv
         idx = topi.astype(jnp.uint32) if need_idx else None
@@ -295,8 +291,7 @@ def rank(col: Column, options: SortOptions = SortOptions()
          ) -> jnp.ndarray:
     """'max'-method 1-based rank, nulls ranked by their sort position
     (arrow-ord/src/rank.rs:54: equal values get the highest of their
-    ranks).  Returns a uint32 tensor.  One jitted scatter-free stage
-    (scatter + segment_max measure 0.005-0.014 Grows/s on v5e)."""
+    ranks).  Returns a uint32 tensor.  One jitted scatter-free stage."""
     from .row_format import key_kind, key_parts
     if len(col) == 0:
         return jnp.zeros((0,), jnp.uint32)
@@ -327,11 +322,14 @@ def _rank_stage(kinds, opts, parts):
     starts_ext = jnp.where(slots < num_runs, starts_raw, jnp.int32(n))
     rank_sorted = starts_ext[jnp.minimum(run_id + 1, n - 1)]
     rank_sorted = jnp.where(run_id + 1 >= num_runs, jnp.int32(n),
-                            rank_sorted).astype(jnp.uint32)
-    # inverse permutation without scatter: sort ranks by original index
+                            rank_sorted)
+    # inverse permutation: sort ranks by original index.  The payload
+    # stays i32 like the key: XLA's GPU pipeline turns a sort by a
+    # permutation into a scatter and fails to verify it when the two
+    # dtypes differ.
     _, rank_orig = jax.lax.sort((idx, rank_sorted), num_keys=1,
                                 is_stable=True)
-    return rank_orig
+    return rank_orig.astype(jnp.uint32)
 
 
 @dataclass
@@ -384,8 +382,8 @@ def _partition_change(columns: Sequence[Column]) -> jnp.ndarray:
     change = jnp.zeros((n - 1,), jnp.bool_)
     for col in columns:
         if isinstance(col, PrimitiveColumn) and col.dtype.is_floating:
-            # native float equality with a NaN class (f64 bitcasts do
-            # not compile on this TPU backend); NaNs compare equal
+            # native float equality with a NaN class; NaNs compare
+            # equal
             v64 = col.values.astype(jnp.float64)
             isnan = jnp.isnan(v64)
             vclean = jnp.where(isnan, jnp.float64(0.0), v64)

@@ -2,7 +2,7 @@
 
 The reference operates directly on UTF-8 buffers with specialized predicate
 fast paths (arrow-string/src/{like.rs,predicate.rs}); its own hot paths
-late-materialize dictionaries (arrow-ord/src/cmp.rs:387).  The TPU design
+late-materialize dictionaries (arrow-ord/src/cmp.rs:387).  The device design
 takes that idea to its conclusion: variable-width data dictionary-encodes at
 ingest, string *predicates* evaluate once per distinct value (host, tiny),
 and the result broadcasts to all rows through a device gather by code —

@@ -24,6 +24,7 @@ module is that surface on a jax.sharding.Mesh.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Optional, Sequence, Tuple
 
@@ -34,6 +35,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from .mesh import make_mesh, shard_axis
 from . import dist
+from .partition import hash_u64
 from .. import dtypes as dt
 from ..core.column import (Column, DictionaryColumn, PrimitiveColumn,
                            StringColumn)
@@ -214,6 +216,18 @@ def _mesh_or_default(mesh: Optional[Mesh]) -> Mesh:
     return mesh if mesh is not None else make_mesh()
 
 
+@functools.partial(jax.jit, static_argnums=(2,))
+def _hash_route_counts(packed, valid, n_shards: int):
+    """(n_shards, n_shards) rows each shard sends each shard under the
+    hash shuffle (rows are split into n_shards equal blocks)."""
+    per = packed.shape[0] // n_shards
+    dest = (hash_u64(packed) % jnp.uint64(n_shards)).astype(jnp.int32)
+    src = jnp.arange(packed.shape[0], dtype=jnp.int32) // per
+    cell = jnp.where(valid, src * n_shards + dest, n_shards * n_shards)
+    counts = jnp.bincount(cell, length=n_shards * n_shards + 1)
+    return counts[:-1].reshape(n_shards, n_shards)
+
+
 def _trim(mask: np.ndarray, *arrays: np.ndarray):
     keep = np.nonzero(mask)[0]
     return tuple(a[keep] for a in arrays)
@@ -260,9 +274,12 @@ def dist_table_group_by(table: Table, keys: Sequence[str],
     valid = _pad(jnp.ones((n,), jnp.bool_), n_pad)
     packed_p = _pad(packed, n_pad)
     vals_p = [_pad(v, n_pad) for _, v in specs]
+    # exact capacities: the most rows one shard sends another, and (as
+    # the lossless group bound) the most rows one shard receives
+    routed = np.asarray(_hash_route_counts(packed_p, valid, n_shards))
+    shuffle_cap = max(int(routed.max()), 1)
     if group_cap is None:
-        group_cap = n_pad            # lossless upper bound
-    shuffle_cap = n_pad              # lossless
+        group_cap = max(int(routed.sum(axis=0).max()), 1)
 
     in_specs = (P(axis),) * (2 + len(vals_p))
 
@@ -333,7 +350,7 @@ def dist_table_sort(table: Table, keys: Sequence[str],
     valid = _pad(jnp.ones((n,), jnp.bool_), n_pad)
     packed_p = _pad(packed, n_pad)
     pays_p = [_pad(a, n_pad) for a in pay_arrays]
-    capacity = n_pad                 # lossless (skew-safe) capacity
+    capacity = per                   # lossless (skew-safe) capacity
 
     @jax.jit
     @jax.shard_map(mesh=mesh,

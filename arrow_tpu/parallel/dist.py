@@ -46,8 +46,7 @@ def local_group_aggregate(key: jnp.ndarray, valid: jnp.ndarray,
     n = key.shape[0]
     k = jnp.where(valid, key, _U64_MAX)
     # ONE payload-carrying sort: the aggregate source tensors ride as
-    # extra operands (at 100M a payload operand adds ~0.6 s of merge
-    # bytes vs ~2.4 s for a post-sort random gather, measured on v5e).
+    # extra operands instead of a post-sort random gather.
     # ~valid is a SECOND sort key so a valid group whose key equals the
     # invalid-row sentinel (u64::MAX / i64::MAX) sorts BEFORE the
     # invalid rows of its run — else its run start is an invalid row,
@@ -71,8 +70,7 @@ def local_group_aggregate(key: jnp.ndarray, valid: jnp.ndarray,
     # invalid rows -> overflow segment
     gid = jnp.where(vs, jnp.minimum(gid_all, group_cap), group_cap)
 
-    # scatter-free segment machinery (XLA segment ops lower to scatter
-    # on TPU, measured 0.005-0.014 Grows/s on v5e): run starts via a
+    # scatter-free (so deterministic) segment machinery: run starts via a
     # partition-sort, counts/sums via cumsum + boundary diff, min/max
     # via a secondary (gid, value-key) sort — same strategy ladder as
     # ops.groupby._agg_stage, in static-shape shard_map form.
@@ -237,7 +235,7 @@ def dist_group_by_stream(axis: str, key_chunks: jnp.ndarray,
     Inputs are (C, n)-shaped per-shard chunk stacks.  Each lax.scan
     iteration issues chunk i+1's all_to_all shuffle AND aggregates the
     already-shuffled chunk i — the two are data-independent inside one
-    program, so XLA's latency-hiding scheduler runs the ICI exchange
+    program, so XLA's latency-hiding scheduler runs the exchange
     concurrently with the local sort/segment work (the in-program form
     of the reference ecosystem's streamed Flight DoExchange).  Chunk
     partials stack up and one final local merge (sum/count->sum,
@@ -275,7 +273,7 @@ def dist_group_by_stream(axis: str, key_chunks: jnp.ndarray,
         # the psum'd overflow flag is replicated while the body's agg
         # overflow is axis-varying: promote the initial carry so scan's
         # carry types match (shard_map vma rule)
-        over0 = jax.lax.pvary(cur[3], (axis,))
+        over0 = jax.lax.pcast(cur[3], (axis,), to="varying")
         (lk, lok, lvs, over), partials = jax.lax.scan(
             body, (cur[0], cur[1], cur[2], over0), xs)
     else:
@@ -347,7 +345,7 @@ def dist_join_stream(axis: str,
     The build side co-shuffles and SORTS once; probe chunk stacks
     ((C, n)-shaped) stream through lax.scan, each iteration issuing
     chunk i+1's all_to_all beside chunk i's local sorted lookup — the
-    ICI exchange rides under the probe compute.  Returns per-chunk
+    exchange rides under the probe compute.  Returns per-chunk
     stacked (probe_key', probe_valid', [probe vals'], match_valid,
     [build vals']) plus a mesh-agreed overflow flag.
     """
@@ -378,7 +376,7 @@ def dist_join_stream(axis: str,
     if C > 1:
         xs = (probe_key_chunks[1:], probe_valid_chunks[1:]) \
             + tuple(v[1:] for v in probe_val_chunks)
-        over0 = jax.lax.pvary(cur[3], (axis,)) \
+        over0 = jax.lax.pcast(cur[3], (axis,), to="varying") \
             if not isinstance(cur[3], bool) else cur[3]
         (lk, lok, lvs, over), outs = jax.lax.scan(
             body, (cur[0], cur[1], cur[2], over0), xs)

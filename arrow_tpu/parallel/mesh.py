@@ -2,9 +2,9 @@
 
 The reference's distribution story is gRPC streams between processes
 (arrow-flight, SURVEY.md §2.4); this engine's is a jax.sharding.Mesh whose
-collectives ride ICI/DCN inside one XLA program.  One logical axis
-("shards") carries the hash-partitioned table distribution — the engine's
-analogue of data parallelism.
+collectives ride the device interconnect inside one XLA program.  One
+logical axis ("shards") carries the hash-partitioned table distribution —
+the engine's analogue of data parallelism.
 """
 
 from __future__ import annotations

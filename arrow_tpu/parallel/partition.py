@@ -1,8 +1,9 @@
 """Hash-partitioned shuffle: the engine's distributed exchange.
 
 Replaces the reference's arrow-flight gRPC exchange (SURVEY.md §3.4) with an
-in-program `all_to_all` over the mesh — the shuffle never leaves XLA, rides
-ICI, and overlaps with surrounding compute under the XLA scheduler.
+in-program `all_to_all` over the mesh — the shuffle never leaves XLA,
+rides the device interconnect (NVLink), and overlaps with surrounding
+compute under the XLA scheduler.
 
 Static-shape discipline (XLA requirement): every shard sends a fixed
 (n_shards, capacity) slab; real rows are marked by a validity mask.
@@ -57,7 +58,7 @@ def bucketize(target: jnp.ndarray, valid: jnp.ndarray, n_shards: int,
     target: int32 destination shard per row; rows with valid=False are
     dropped.  Returns (slabs..., slab_valid) with each slab shaped
     (n_shards, capacity).  One stable sort groups rows by destination —
-    the TPU analogue of the CPU radix partition pass.
+    the dense-vector analogue of the CPU radix partition pass.
     """
     n = target.shape[0]
     t = jnp.where(valid, target, n_shards)  # invalid rows -> overflow bin
@@ -68,8 +69,8 @@ def bucketize(target: jnp.ndarray, valid: jnp.ndarray, n_shards: int,
                                                    dtype=t_sorted.dtype))
     starts, counts = bounds[:-1], bounds[1:] - bounds[:-1]
     overflow = jnp.any(counts > capacity)
-    # slab fill is a GATHER (scatter measures 0.005-0.014 Grows/s on
-    # v5e vs ~0.15 Grows/s gathers): slab[s, p] = row order[starts[s]+p]
+    # slab fill is a GATHER, so it is deterministic:
+    # slab[s, p] = row order[starts[s]+p]
     # when p < counts[s]; out-of-count slots carry garbage bytes masked
     # by slab_valid (the ShuffleResult contract is mask-driven).
     slot_pos = jnp.arange(capacity)

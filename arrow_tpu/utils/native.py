@@ -1,14 +1,22 @@
 """ctypes bindings to the native hostcodec library (native/hostcodec.cpp).
 
-Auto-builds with g++ on first use if the shared object is missing; every
-entry point has a NumPy fallback so the engine works without a toolchain.
+Builds with `make -C native` on first use, and again whenever the stamp
+beside the shared object does not match the sources, the Makefile and the
+host's machine type (so a library built for another host is never
+loaded).  Every entry point has a NumPy fallback, so the engine works
+without a toolchain; a failed build says so with a warning.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
+import platform
 import subprocess
+import threading
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -20,31 +28,77 @@ __all__ = ["available", "pack_bits", "unpack_bits", "count_set_bits",
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "native")
 _SO = os.path.join(_NATIVE_DIR, "libhostcodec.so")
+_STAMP = _SO + ".stamp"
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+_load_lock = threading.Lock()
+
+
+def _build_id() -> str:
+    h = hashlib.sha256()
+    for name in ("hostcodec.cpp", "Makefile"):
+        with open(os.path.join(_NATIVE_DIR, name), "rb") as f:
+            h.update(f.read())
+    h.update(platform.machine().encode())
+    return h.hexdigest()
+
+
+def _read_stamp() -> str:
+    try:
+        with open(_STAMP) as f:
+            return f.read().strip()
+    except OSError:
+        return ""
+
+
+def _ensure_built() -> bool:
+    """Build the library unless its stamp matches; True when a library
+    for this host and these sources is on disk.  A file lock serializes
+    builds across processes (test workers start together)."""
+    want = _build_id()
+    if _read_stamp() == want and os.path.exists(_SO):
+        return True
+    with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if _read_stamp() == want and os.path.exists(_SO):
+            return True
+        try:
+            os.remove(_STAMP)
+        except FileNotFoundError:
+            pass
+        try:
+            subprocess.run(["make", "-C", _NATIVE_DIR, "-s", "-B"],
+                           check=True, capture_output=True, timeout=300)
+        except (OSError, subprocess.SubprocessError) as e:
+            err = getattr(e, "stderr", None) or b""
+            warnings.warn(
+                "native hostcodec build failed; using NumPy fallbacks: "
+                f"{e} {err.decode(errors='replace')[-500:]}")
+            return False
+        tmp = f"{_STAMP}.{os.getpid()}"
+        with open(tmp, "w") as f:
+            f.write(want)
+        os.replace(tmp, _STAMP)
+        return True
 
 
 def _load() -> Optional[ctypes.CDLL]:
     global _lib, _tried
-    if _lib is not None or _tried:
-        return _lib
-    _tried = True
-    src = os.path.join(_NATIVE_DIR, "hostcodec.cpp")
-    stale = not os.path.exists(_SO) or (
-        os.path.exists(src)
-        and os.path.getmtime(src) > os.path.getmtime(_SO))
-    if stale:
+    with _load_lock:
+        if _lib is not None or _tried:
+            return _lib
+        _tried = True
+        if not _ensure_built():
+            return None
         try:
-            subprocess.run(["make", "-C", _NATIVE_DIR, "-s", "-B"],
-                           check=True, capture_output=True, timeout=120)
-        except Exception:
-            if not os.path.exists(_SO):
-                return None
-    try:
-        lib = ctypes.CDLL(_SO)
-    except OSError:
-        return None
+            _lib = _bind(ctypes.CDLL(_SO))
+        except OSError as e:
+            warnings.warn(f"native hostcodec failed to load: {e}")
+        return _lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     u8p = ctypes.POINTER(ctypes.c_uint8)
     i64 = ctypes.c_int64
     lib.pack_bits.argtypes = [u8p, i64, u8p]
@@ -81,8 +135,7 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.lz4_frame_compress.restype = i64
     lib.lz4_frame_decompress.argtypes = [u8p, i64, u8p, i64]
     lib.lz4_frame_decompress.restype = i64
-    _lib = lib
-    return _lib
+    return lib
 
 
 def available() -> bool:

@@ -258,7 +258,7 @@ def test_flight_middleware_headers_and_rejection():
     class Recorder:
         def start_call(self, method, metadata):
             seen.append((method, metadata.get("x-tenant")))
-            return {"x-served-by": "arrow-tpu"}
+            return {"x-served-by": "arrow-engine"}
 
     class TenantGate:
         def start_call(self, method, metadata):

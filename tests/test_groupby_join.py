@@ -457,19 +457,10 @@ def test_perfect_index_many_null_build_keys(monkeypatch):
     assert np.asarray(ri).tolist() == [0, 3]
 
 
-def test_bin_path_fused_crash_fallback(monkeypatch):
-    # the remote AOT compiler SIGSEGVs on some large fused bin stages
-    # (measured: 6 aggs over 5M x 50k bins); the path must rerun one
-    # value column per stage and still answer exactly
-    import jax
-    real = _gb._bin_chunk_stage
-
-    def crashing(kplan, vplan, g_total, *a):
-        if len(vplan) > 1:
-            raise jax.errors.JaxRuntimeError(
-                "remote_compile: HTTP 500 (simulated)")
-        return real(kplan, vplan, g_total, *a)
-
+def test_bin_path_many_value_columns(monkeypatch):
+    # one bin stage carries several value columns (int with nulls, float
+    # with NaN) through its primary and extra sorts; it must answer
+    # exactly like the general path
     rng = np.random.default_rng(3)
     n = 1500
     k = rng.integers(0, 30, n)
@@ -483,11 +474,7 @@ def test_bin_path_fused_crash_fallback(monkeypatch):
             _gb.AggSpec("v", "max"), _gb.AggSpec("f", "sum"),
             _gb.AggSpec("f", "min"), _gb.AggSpec("f", "max"),
             _gb.AggSpec("k", "count_all")]
-    with monkeypatch.context() as m:
-        m.setattr(_gb, "_bin_chunk_stage", crashing)
-        m.setattr(_gb, "_FUSED_CRASHED", set())
-        got = _gb._int_range_fast_path(
-            t, [t.column("k")], ["k"], aggs)
+    got = _gb._int_range_fast_path(t, [t.column("k")], ["k"], aggs)
     assert got is not None
     with monkeypatch.context() as m:
         m.setattr(_gb, "_int_range_fast_path", lambda *a: None)
@@ -567,30 +554,30 @@ def test_multikey_semi_anti():
     assert a.column("v").to_pylist() == [10, 30]
 
 
-def test_dictionary_fast_path_gates_null_and_dup_values():
+def test_dictionary_fast_path_gates_null_and_dup_values(monkeypatch):
     """Dictionaries with null entries or duplicate values must produce
-    the GENERAL path's answer on the fast path too (it now gates)."""
-    import os
+    the GENERAL path's answer: the fast path declines them."""
     import jax.numpy as jnp
     from arrow_tpu.core.column import DictionaryColumn, StringColumn
-    vals = StringColumn.from_pylist(["a", None, "a"])
-    key = DictionaryColumn(jnp.asarray(np.array([0, 1, 2, 1], np.int32)),
-                           vals, None)
-    v = at.column([1, 2, 3, 4])
-    t = at.Table((key, v), at.Schema((at.Field("k", key.dtype),
-                                      at.Field("v", at.int64))))
-    old = os.environ.get("ARROW_TPU_USE_PALLAS")
-    try:
-        os.environ["ARROW_TPU_USE_PALLAS"] = "0"
-        want = ops.group_by(t, ["k"], [ops.AggSpec("v", "sum")]).to_pydict()
-        os.environ["ARROW_TPU_USE_PALLAS"] = "1"
-        got = ops.group_by(t, ["k"], [ops.AggSpec("v", "sum")]).to_pydict()
-    finally:
-        if old is None:
-            os.environ.pop("ARROW_TPU_USE_PALLAS", None)
+    for entries in (["a", None, "b"], ["a", "b", "a"]):
+        key = DictionaryColumn(
+            jnp.asarray(np.array([0, 1, 2, 1], np.int32)),
+            StringColumn.from_pylist(entries), None)
+        v = at.column([1, 2, 3, 4])
+        t = at.Table((key, v), at.Schema((at.Field("k", key.dtype),
+                                          at.Field("v", at.int64))))
+        aggs = [ops.AggSpec("v", "sum")]
+        assert _gb._dictionary_fast_path(t, [key], ["k"], aggs) is None
+        got = ops.group_by(t, ["k"], aggs).to_pydict()
+        with monkeypatch.context() as m:
+            m.setattr(_gb, "_dictionary_fast_path", lambda *a: None)
+            want = ops.group_by(t, ["k"], aggs).to_pydict()
+        assert got == want
+        vals = dict(zip(got["k"], got["v_sum"]))
+        if None in entries:
+            assert vals == {None: 6, "a": 1, "b": 3}
         else:
-            os.environ["ARROW_TPU_USE_PALLAS"] = old
-    assert got == want
+            assert vals == {"a": 4, "b": 6}
 
 
 def test_group_by_string_min_max():
